@@ -2,7 +2,7 @@
 //
 // Purpose: the reference C++ (Armadillo + BLAS, single-threaded) could not
 // be built (source mount empty — SURVEY.md §0), so this program is the
-// measured denominator for BASELINE.md: the same algorithm the TPU path
+// measured denominator for BASELINE.md: the same algorithm the JAX path
 // runs — B = diag(e^{alpha s}) expK propagators, per-site Metropolis with
 // Sherman-Morrison rank-1 Green updates (BLAS dger), dense wraps (dgemm),
 // QR/UdV stabilization every s slices with the same unitary-sandwich pair
@@ -91,7 +91,7 @@ static void udv(Mat C, UDV& out) {
 }
 
 // G = U2 [d1max(d1max^-1 U1^T U2 d2max^-1 + d1min V1 V2^T d2min)d2max]^-1
-//        U1^T   — identical formula to detqmc_tpu.linalg.udv.
+//        U1^T   — identical formula to detqmc.linalg.udv.
 static void green_pair(const UDV& L, const UDV& Rt, Mat& G) {
   const i64 n = G.n;
   Mat t1(n), t2(n), t3(n);

@@ -2,14 +2,14 @@
 //
 // Purpose: BASELINE.md's denominator for the SDW lines (the reference's
 // main scientific payload, expected src/detsdwopdim.cpp — mount empty, see
-// SURVEY.md §0). Same algorithm class as the TPU path's bench config:
+// SURVEY.md §0). Same algorithm class as the JAX path's bench config:
 // full opdim-3 chain on the complex 4N-dim fermion matrix, dense per-band
 // e^{-dtau K} (zgemm wraps), per-site box-proposal Metropolis with the
 // 4x4 block det ratio and rank-4 Woodbury Green updates (zgemm), QR/UdV
 // stabilization every s slices with the identical stable pair formula
-// (complex mirror of dqmc_baseline.cpp / detqmc_tpu.linalg.udv).
+// (complex mirror of dqmc_baseline.cpp / detqmc.linalg.udv).
 //
-// Conventions match detqmc_tpu/models/sdw.py exactly (verified by the
+// Conventions match detqmc/models/sdw.py exactly (verified by the
 // selftest mode + tests/test_sdw_baseline.py):
 //   B_l = D_V(phi_l) expK, orbital-major basis (x_up, x_dn, y_up, y_dn),
 //   D_V site blocks [[ch 1_2, c Phi], [c Phi, ch 1_2]], Phi = phi . sigma,
@@ -103,7 +103,7 @@ static void udv(Mat C, UDV& out) {
 }
 
 // G = U2 [d1max(d1max^-1 U1^H U2 d2max^-1 + d1min V1 V2^H d2min)d2max]^-1
-//        U1^H  — complex mirror of detqmc_tpu.linalg.udv's pair formula.
+//        U1^H  — complex mirror of detqmc.linalg.udv's pair formula.
 static void green_pair(const UDV& L, const UDV& Rt, Mat& G) {
   const i64 n = G.n;
   Mat t1(n), t2(n), t3(n);
@@ -173,7 +173,7 @@ static cd lu4_det_solve(cd A[4][4], cd B[4][4]) {
 struct Sim {
   i64 L, N, dim, m, s, K;
   double beta, dtau;
-  // model constants (defaults of detqmc_tpu.models.sdw.SDWConfig)
+  // model constants (defaults of detqmc.models.sdw.SDWConfig)
   double lam = 1.0, u = 1.0, c = 1.0, r = 0.5, mu = -0.5;
   double txhor = -1.0, txver = -0.5, tyhor = -0.5, tyver = -1.0;
   double box_w = 1.0;

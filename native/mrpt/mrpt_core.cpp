@@ -2,7 +2,7 @@
 //
 // Reference parity: the upstream mrpt family (SURVEY.md §3 "mrpt family",
 // expected src/mrpt.cpp) runs its self-consistency iteration and
-// reweighting sums as OpenMP-parallel C++ loops; this is the TPU-framework
+// reweighting sums as OpenMP-parallel C++ loops; this is the JAX-framework
 // equivalent, driving the same log-domain math as analysis/mrpt.py's
 // NumPy fallback without materializing the (S, R) sample-by-parameter
 // matrix (at 32 replicas x 100k samples that matrix is ~0.8 GB per

@@ -4,10 +4,10 @@ Deliberately simple and slow: Green's functions are recomputed from scratch
 with fp64 QR stabilization, determinant ratios are evaluated exactly, and
 the Metropolis sweep mirrors the reference algorithm (SURVEY.md §9 "Hubbard
 HS"). This stands in for the absent reference binary as the correctness
-anchor (SURVEY.md §5, §8 step 1) — detqmc_tpu must agree with this to
+anchor (SURVEY.md §5, §8 step 1) — detqmc must agree with this to
 1e-8 on fixed auxiliary-field configurations in float64.
 
-Conventions (shared with detqmc_tpu.models.hubbard):
+Conventions (shared with detqmc.models.hubbard):
   H = -t sum_<ij>s c+_is c_js + U sum_i (n_up - 1/2)(n_dn - 1/2)
       - mu sum n                                  (half filling at mu = 0)
   cosh(alpha) = exp(dtau U / 2)
@@ -35,7 +35,7 @@ class HubbardOracle:
     m: int = 40  # number of imaginary-time slices; dtau = beta / m
 
     def __post_init__(self):
-        from detqmc_tpu.lattice import SquareLattice, kinetic_exponentials
+        from detqmc.lattice import SquareLattice, kinetic_exponentials
 
         self.lat = SquareLattice(self.L)
         self.N = self.lat.n_sites
@@ -48,7 +48,7 @@ class HubbardOracle:
     # -- B matrices --------------------------------------------------------
     def b_mat(self, s_slice: np.ndarray, spin: int) -> np.ndarray:
         """B_spin(l) = diag(exp(spin*alpha*s_l)) @ expK (potential leftmost;
-        see detqmc_tpu.linalg.bchain for why this ordering pairs with the
+        see detqmc.linalg.bchain for why this ordering pairs with the
         G(l)-based update formulas)."""
         return np.exp(spin * self.alpha * s_slice)[:, None] * self.expK
 

@@ -2,7 +2,7 @@
 
 Brute-force construction of the (4N, 4N) fermion matrices, stabilized
 Green's functions and determinant ratios, mirroring tests/oracle/
-hubbard_oracle.py. Conventions identical to detqmc_tpu.models.sdw:
+hubbard_oracle.py. Conventions identical to detqmc.models.sdw:
 B_l = exp(-dtau V(phi_l)) @ exp(-dtau K), orbital-major (x_up, x_dn,
 y_up, y_dn) layout.
 """
@@ -23,7 +23,7 @@ class SDWOracle:
     def __init__(self, L=2, opdim=2, r=0.5, lam=1.0, u=1.0, c=1.0,
                  txhor=-1.0, txver=-0.5, tyhor=-0.5, tyver=-1.0,
                  mu=-0.5, beta=2.0, m=8):
-        from detqmc_tpu.lattice import SquareLattice, kinetic_exponentials
+        from detqmc.lattice import SquareLattice, kinetic_exponentials
 
         self.lat = SquareLattice(L)
         self.N = self.lat.n_sites
@@ -120,7 +120,7 @@ class SDWOracle:
 def classical_on_mc(L, opdim, r, u, c, beta, m, n_sweeps, rng, box=1.0):
     """Independent plain-Metropolis sampler of the pure boson action
     (turnoffFermions limit), for statistical cross-checks."""
-    from detqmc_tpu.lattice import SquareLattice
+    from detqmc.lattice import SquareLattice
 
     lat = SquareLattice(L)
     N = lat.n_sites

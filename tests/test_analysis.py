@@ -4,21 +4,21 @@ sdwcorr, and the Ferrenberg-Swendsen reweighting against exact toys."""
 import numpy as np
 import pytest
 
-from detqmc_tpu.analysis.deteval import evaluate_run, main as deteval_main
-from detqmc_tpu.analysis.jointimeseries import join
-from detqmc_tpu.analysis.mrpt import (
+from detqmc.analysis.deteval import evaluate_run, main as deteval_main
+from detqmc.analysis.jointimeseries import join
+from detqmc.analysis.mrpt import (
     MultireweightPT,
     find_binder_intersection,
     jackknife_reweighted,
 )
-from detqmc_tpu.analysis.sdwcorr import phi_correlations
-from detqmc_tpu.io.binarystream import (
+from detqmc.analysis.sdwcorr import phi_correlations
+from detqmc.io.binarystream import (
     BinaryStreamWriter,
     extract_doubles,
     read_binarystream,
 )
-from detqmc_tpu.io.series import SeriesWriter, load_results, load_series
-from detqmc_tpu.metadata import write_metadata
+from detqmc.io.series import SeriesWriter, load_results, load_series
+from detqmc.metadata import write_metadata
 
 
 def test_deteval_roundtrip(tmp_path):
@@ -111,7 +111,7 @@ def test_mrpt_native_core_matches_numpy():
     """The OpenMP C++ FS core (native/mrpt, loaded via ctypes) must agree
     with the pure-NumPy fallback on free energies, log weights and curves
     (skipped when no compiler/prebuilt library exists)."""
-    from detqmc_tpu.analysis import _native
+    from detqmc.analysis import _native
 
     if _native.get_lib() is None:
         pytest.skip("native mrpt core unavailable (no g++?)")
@@ -168,7 +168,7 @@ def test_mrpt_jackknife_and_binder():
 def test_mrpt_observable_maximum():
     """Golden-section maximum finder agrees with a dense scan of the
     same reweighted curve (reference: susceptibility-maximum finders)."""
-    from detqmc_tpu.analysis.mrpt import find_observable_maximum
+    from detqmc.analysis.mrpt import find_observable_maximum
 
     rng = np.random.default_rng(3)
     A = 3.0
@@ -190,7 +190,7 @@ def test_mrpt_jackknife_intersection():
     """jackknife_intersection finds a constructed Binder crossing and
     returns a positive, small error (the whole FS solve repeats per
     leave-one-out block, both runs)."""
-    from detqmc_tpu.analysis.mrpt import jackknife_intersection
+    from detqmc.analysis.mrpt import jackknife_intersection
 
     rng = np.random.default_rng(4)
     A = 3.0
@@ -217,9 +217,9 @@ def test_mrpt_jackknife_intersection():
 
 def test_mrpt_cli_maxsusc_and_intersect(tmp_path, capsys):
     """CLI wiring: --maxsusc and --intersect on synthetic PT run dirs."""
-    from detqmc_tpu.cli.main_mrpt import main as mrpt_main
-    from detqmc_tpu.io.series import SeriesWriter
-    from detqmc_tpu.metadata import write_metadata
+    from detqmc.cli.main_mrpt import main as mrpt_main
+    from detqmc.io.series import SeriesWriter
+    from detqmc.metadata import write_metadata
 
     rng = np.random.default_rng(5)
     A = 3.0

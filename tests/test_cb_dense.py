@@ -1,7 +1,7 @@
-"""Dense-product checkerboard apply (cb_apply="dense", the TPU default).
+"""Dense-product checkerboard apply (cb_apply="dense", the default).
 
 The checkerboard breakup defines E as a PRODUCT of bond-group factors;
-applying the precomputed product matrix on the MXU must agree with the
+applying the precomputed product matrix as one matmul must agree with the
 literal sequential gather+axpy passes (cb_apply="sparse" — the
 reference's O(N) apply, SURVEY.md §3 row "Checkerboard hopping") to
 fp64 rounding, for every variant (inverse, transpose, right-apply) and
@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from detqmc_tpu import lattice as lattice_mod
-from detqmc_tpu.linalg import bchain
-from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
-from detqmc_tpu.models.sdw import SDWConfig, SDWModel
+from detqmc import lattice as lattice_mod
+from detqmc.linalg import bchain
+from detqmc.models.hubbard import HubbardConfig, HubbardModel
+from detqmc.models.sdw import SDWConfig, SDWModel
 
 
 @pytest.mark.parametrize("opdim", [1, 3])

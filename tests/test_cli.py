@@ -4,10 +4,10 @@ results; SURVEY.md §3 "CLI mains")."""
 import numpy as np
 import pytest
 
-from detqmc_tpu.cli.main_hubbard import main as hubbard_main
-from detqmc_tpu.cli.main_pt_sdw import main as pt_main
-from detqmc_tpu.cli.main_sdw import main as sdw_main
-from detqmc_tpu.io.series import load_results
+from detqmc.cli.main_hubbard import main as hubbard_main
+from detqmc.cli.main_pt_sdw import main as pt_main
+from detqmc.cli.main_sdw import main as sdw_main
+from detqmc.io.series import load_results
 
 
 def test_hubbard_cli_conf_file(tmp_path, capsys):
@@ -70,7 +70,7 @@ def test_pt_sdw_cli_rejects_walkers(tmp_path, capsys):
 
 def test_mrpt_cli_on_pt_run(tmp_path, capsys):
     """Full pipeline: PT run -> .series files -> mrpt reweighting curves."""
-    from detqmc_tpu.cli.main_mrpt import main as mrpt_main
+    from detqmc.cli.main_mrpt import main as mrpt_main
 
     rc = pt_main([
         "L=2", "opdim=2", "r=0.0", "beta=1.0", "m=4", "s=2",
@@ -100,7 +100,7 @@ def test_example_configs_parse_and_run(tmp_path, capsys):
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ex = os.path.join(root, "examples")
-    from detqmc_tpu.config import (_HUBBARD_KEYS, _PT_KEYS, _SDW_KEYS,
+    from detqmc.config import (_HUBBARD_KEYS, _PT_KEYS, _SDW_KEYS,
                                    build_driver_config, build_hubbard_config,
                                    build_sdw_config, parse_args,
                                    split_params)
@@ -134,7 +134,7 @@ def test_pt_hubbard_h_grid_cli(tmp_path, capsys):
     """detqmc-pt model=hubbard: end-to-end stagger_h grid (label-swap
     PT; VERDICT r4 item 7 — the capability exists in the library but was
     unreachable from the binaries)."""
-    from detqmc_tpu.cli.main_pt import main as generic_pt_main
+    from detqmc.cli.main_pt import main as generic_pt_main
 
     rc = generic_pt_main([
         "model=hubbard", "L=2", "U=4.0", "beta=1.5", "dtau=0.125",
@@ -152,7 +152,7 @@ def test_pt_hubbard_h_grid_cli(tmp_path, capsys):
 def test_pt_beta_grid_cli(tmp_path, capsys):
     """detqmc-pt controlParameter=beta: det-coupled config-swap PT over
     a beta grid from the ops surface (VERDICT r4 item 6 example)."""
-    from detqmc_tpu.cli.main_pt import main as generic_pt_main
+    from detqmc.cli.main_pt import main as generic_pt_main
 
     rc = generic_pt_main([
         "model=hubbard", "L=2", "U=4.0", "m=8", "dtau=0.25", "s=2",

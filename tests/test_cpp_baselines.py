@@ -42,7 +42,7 @@ def test_cpp_sdw_baseline_green_matches_model(tmp_path):
 
     import jax
 
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
+    from detqmc.models.sdw import SDWConfig, SDWModel
 
     L, beta, m, s = 2, 1.0, 4, 2
     N = L * L
@@ -73,7 +73,7 @@ def test_cpp_hubbard_baseline_green_matches_model(tmp_path):
 
     import jax
 
-    from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
+    from detqmc.models.hubbard import HubbardConfig, HubbardModel
 
     L, beta, m, s = 4, 2.0, 8, 4
     N = L * L

@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from detqmc_tpu.driver import DriverConfig
-from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
-from detqmc_tpu.models.sdw import SDWConfig, SDWModel
-from detqmc_tpu.parallel.det_pt import DetPTConfig, DetQMCPTDet
+from detqmc.driver import DriverConfig
+from detqmc.models.hubbard import HubbardConfig, HubbardModel
+from detqmc.models.sdw import SDWConfig, SDWModel
+from detqmc.parallel.det_pt import DetPTConfig, DetQMCPTDet
 from tests.oracle.hubbard_oracle import HubbardOracle
 from tests.oracle.sdw_oracle import SDWOracle
 
@@ -175,7 +175,7 @@ def test_det_pt_resume_determinism(tmp_path):
 
 def test_det_pt_validates_inputs():
     models = _beta_models([2.0, 2.4])
-    from detqmc_tpu.exceptions import ConfigurationError
+    from detqmc.exceptions import ConfigurationError
 
     with pytest.raises(ConfigurationError):
         DetQMCPTDet(models, [2.0], DriverConfig(n_walkers=1))

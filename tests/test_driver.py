@@ -4,8 +4,8 @@ determinism (SURVEY.md §5 implications (c), (e))."""
 import numpy as np
 import pytest
 
-from detqmc_tpu.driver import DetQMC, DriverConfig
-from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
+from detqmc.driver import DetQMC, DriverConfig
+from detqmc.models.hubbard import HubbardConfig, HubbardModel
 from tests.oracle.hubbard_oracle import hubbard_ed
 
 
@@ -28,7 +28,7 @@ def test_hubbard_vs_exact_diagonalization():
     """Statistical end-to-end gate: L=2 lattice (4 sites, doubled bonds ->
     effective hopping 2t) vs exact diagonalization of the identical
     Hamiltonian. Tolerance = Trotter error (~U t dtau^2) + 5 sigma MC."""
-    from detqmc_tpu.lattice import SquareLattice
+    from detqmc.lattice import SquareLattice
 
     cfg = HubbardConfig(L=2, U=4.0, beta=2.0, m=40, s=4, dtype="float64")
     model = HubbardModel(cfg)
@@ -76,7 +76,7 @@ def test_driver_run_and_resume(tmp_path):
 
 @pytest.mark.slow
 def test_small_lattice_vs_oracle_mc():
-    """Independent-code cross-check: the jitted TPU-native chain and the
+    """Independent-code cross-check: the jitted JAX chain and the
     fp64 NumPy oracle chain sample the same distribution (L=2, beta=2).
     Observables must agree within combined stochastic error."""
     import jax
@@ -107,4 +107,4 @@ def test_small_lattice_vs_oracle_mc():
         mean, err = res[k]
         tol = 5.0 * np.hypot(err, o_err)
         assert abs(mean - o_mean) < max(tol, 0.02), (
-            f"{k}: tpu {mean}+-{err} vs oracle {o_mean}+-{o_err}")
+            f"{k}: jax {mean}+-{err} vs oracle {o_mean}+-{o_err}")

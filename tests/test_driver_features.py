@@ -4,10 +4,10 @@ tuning, phi config dumps."""
 import numpy as np
 import pytest
 
-from detqmc_tpu.driver import DetQMC, DriverConfig
-from detqmc_tpu.io.binarystream import read_binarystream
-from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
-from detqmc_tpu.models.sdw import SDWConfig, SDWModel
+from detqmc.driver import DetQMC, DriverConfig
+from detqmc.io.binarystream import read_binarystream
+from detqmc.models.hubbard import HubbardConfig, HubbardModel
+from detqmc.models.sdw import SDWConfig, SDWModel
 
 
 def test_timedisplaced_measurement(tmp_path):
@@ -70,8 +70,8 @@ def test_consistency_logs_written(tmp_path):
     """The green_dev / SV monitors must reach run output (reference:
     DetModelLoggingParams' logSV + wrapped-vs-stabilized deviation files,
     SURVEY.md §5 item 1) and echo into info.dat."""
-    from detqmc_tpu.io.series import load_series
-    from detqmc_tpu.metadata import read_metadata
+    from detqmc.io.series import load_series
+    from detqmc.metadata import read_metadata
 
     cfg = HubbardConfig(L=2, U=4.0, beta=2.0, m=8, s=4, dtype="float64")
     p = DriverConfig(sweeps=10, thermalization=2, n_walkers=2, seed=4,

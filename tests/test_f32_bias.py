@@ -1,6 +1,6 @@
 """f32-chain vs fp64-chain statistical agreement.
 
-The on-TPU Markov chain runs accept decisions on the wrapped f32 Green
+The accelerator Markov chain runs accept decisions on the wrapped f32 Green
 function between stabilizations (~1e-3 drift at beta=8); the 1e-8 oracle
 gates all run on fp64. This is the end-to-end check that the f32 physics
 is unbiased: the same config run as an f32 ensemble and an fp64 ensemble
@@ -12,9 +12,9 @@ philosophy, SURVEY.md §5).
 import numpy as np
 import pytest
 
-from detqmc_tpu.driver import DetQMC, DriverConfig
-from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
-from detqmc_tpu.models.sdw import SDWConfig, SDWModel
+from detqmc.driver import DetQMC, DriverConfig
+from detqmc.models.hubbard import HubbardConfig, HubbardModel
+from detqmc.models.sdw import SDWConfig, SDWModel
 
 
 def _assert_within_error(res32, res64, floor=0.01):
@@ -54,7 +54,7 @@ def test_f32_chain_unbiased_vs_f64():
 
 @pytest.mark.slow
 def test_sdw_f32_chain_unbiased_vs_f64():
-    """SDW analogue of the Hubbard bias gate: the f32 chain (the TPU
+    """SDW analogue of the Hubbard bias gate: the f32 chain (the device
     arithmetic; the fused kernels are identical-chain-tested against
     this scan path) must agree with the fp64 ensemble on the bosonic
     and fermionic observables within combined stochastic error."""
@@ -79,12 +79,12 @@ def test_sdw_f32_chain_unbiased_vs_f64():
 
 # The headline-shape ensembles below cost ~0.5-1 h each on this 1-CPU
 # box, which would dominate the whole suite's budget — they are gated
-# behind DETQMC_TPU_RUN_HEADLINE_BIAS=1 and run once per round as the
+# behind DETQMC_RUN_HEADLINE_BIAS=1 and run once per round as the
 # recorded bias evidence (BASELINE.md "Bias bounds at the headline
 # shapes"); the L=4-class tests above stay in every run.
 _headline = pytest.mark.skipif(
-    not __import__("os").environ.get("DETQMC_TPU_RUN_HEADLINE_BIAS"),
-    reason="headline-shape ensemble (set DETQMC_TPU_RUN_HEADLINE_BIAS=1)")
+    not __import__("os").environ.get("DETQMC_RUN_HEADLINE_BIAS"),
+    reason="headline-shape ensemble (set DETQMC_RUN_HEADLINE_BIAS=1)")
 
 
 @pytest.mark.slow

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
+from detqmc.models.hubbard import HubbardConfig, HubbardModel
 from tests.oracle.hubbard_oracle import HubbardOracle, exact_free_green
 
 CFG = HubbardConfig(L=4, t=1.0, U=4.0, mu=0.0, beta=4.0, m=40, s=8,

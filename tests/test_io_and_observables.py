@@ -1,13 +1,13 @@
 import numpy as np
 
-from detqmc_tpu.io.series import (
+from detqmc.io.series import (
     SeriesWriter,
     load_results,
     load_series,
     write_results,
 )
-from detqmc_tpu.metadata import read_metadata, write_metadata
-from detqmc_tpu.observables import ObservableHandler
+from detqmc.metadata import read_metadata, write_metadata
+from detqmc.observables import ObservableHandler
 
 
 def test_series_roundtrip(tmp_path):

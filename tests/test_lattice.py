@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from detqmc_tpu.lattice import SquareLattice, kinetic_exponentials
+from detqmc.lattice import SquareLattice, kinetic_exponentials
 
 
 def test_neighbors_periodic():

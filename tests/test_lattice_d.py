@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from detqmc_tpu.lattice import HyperCubicLattice
-from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
+from detqmc.lattice import HyperCubicLattice
+from detqmc.models.hubbard import HubbardConfig, HubbardModel
 
 
 def test_hypercubic_tables():
@@ -69,8 +69,8 @@ def test_checkerboard_matches_dense_d(d, L):
     Markov chain up to Trotter-breakup differences in the weight — here
     just compare the kinetic applies algebraically at first order and
     the exact involution identity E_cb E_cb^{-1} = 1."""
-    from detqmc_tpu.linalg import bchain
-    from detqmc_tpu.lattice import HyperCubicLattice
+    from detqmc.linalg import bchain
+    from detqmc.lattice import HyperCubicLattice
 
     lat = HyperCubicLattice(L, d)
     dtau = 0.05

@@ -6,8 +6,8 @@ import jax
 import numpy as np
 import pytest
 
-from detqmc_tpu.driver import DetQMC, DriverConfig
-from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
+from detqmc.driver import DetQMC, DriverConfig
+from detqmc.models.hubbard import HubbardConfig, HubbardModel
 
 
 def test_sharded_driver_matches_single_device():
@@ -39,8 +39,8 @@ def test_sharded_pt_driver_matches_single_device():
     """DetQMCPT with mesh_devices: the replica axis shards over the
     mesh (GSPMD, same pattern as the walker sharding) and results match
     the single-device run exactly."""
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
-    from detqmc_tpu.parallel.pt_driver import DetQMCPT, PTConfig
+    from detqmc.models.sdw import SDWConfig, SDWModel
+    from detqmc.parallel.pt_driver import DetQMCPT, PTConfig
 
     cfg = SDWConfig(L=2, opdim=1, r=0.0, u=0.5, beta=1.0, m=4, s=2,
                     turnoffFermions=True, dtype="float64")
@@ -66,8 +66,8 @@ def test_sharded_pt_driver_matches_single_device():
 def test_sharded_pt_driver_ensemble_axis():
     """With ensembles the ENSEMBLE axis shards (whole PT systems per
     device; swaps never cross devices) — results match unsharded."""
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
-    from detqmc_tpu.parallel.pt_driver import DetQMCPT, PTConfig
+    from detqmc.models.sdw import SDWConfig, SDWModel
+    from detqmc.parallel.pt_driver import DetQMCPT, PTConfig
 
     cfg = SDWConfig(L=2, opdim=1, r=0.0, u=0.5, beta=1.0, m=4, s=2,
                     turnoffFermions=True, dtype="float64")

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from detqmc_tpu.parallel import pt as pt_mod
+from detqmc.parallel import pt as pt_mod
 
 
 def test_param_assignment_stays_permutation():
@@ -87,9 +87,9 @@ def test_pt_end_to_end_boson_limit(tmp_path):
     """4 replicas over an r grid in the turnoffFermions limit: each
     parameter's <phi^2> must match an independent single-r run within
     errors, and <phi^2> must decrease with r."""
-    from detqmc_tpu.driver import DriverConfig
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
-    from detqmc_tpu.parallel.pt_driver import DetQMCPT, PTConfig
+    from detqmc.driver import DriverConfig
+    from detqmc.models.sdw import SDWConfig, SDWModel
+    from detqmc.parallel.pt_driver import DetQMCPT, PTConfig
 
     r_grid = [0.0, 0.7, 1.4, 2.1]
     cfg = SDWConfig(L=2, opdim=2, r=0.0, u=0.5, beta=2.0, m=8, s=2,
@@ -111,7 +111,7 @@ def test_pt_end_to_end_boson_limit(tmp_path):
     # cross-check r = 2.1 against an independent single-parameter run
     cfg1 = SDWConfig(L=2, opdim=2, r=2.1, u=0.5, beta=2.0, m=8, s=2,
                      turnoffFermions=True, dtype="float64", box_width=1.5)
-    from detqmc_tpu.driver import DetQMC
+    from detqmc.driver import DetQMC
     single = DetQMC(SDWModel(cfg1),
                     DriverConfig(sweeps=300, thermalization=60,
                                  jk_blocks=8, n_walkers=4, seed=11,
@@ -125,9 +125,9 @@ def test_meas_round_tags_pre_exchange_assignment():
     emitted with them must be that assignment, not the post-swap one
     (a post-swap tag books every accepted swap's measurements into the
     adjacent parameter's stream)."""
-    from detqmc_tpu.driver import DriverConfig
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
-    from detqmc_tpu.parallel.pt_driver import DetQMCPT, PTConfig
+    from detqmc.driver import DriverConfig
+    from detqmc.models.sdw import SDWConfig, SDWModel
+    from detqmc.parallel.pt_driver import DetQMCPT, PTConfig
 
     cfg = SDWConfig(L=2, opdim=1, r=0.0, u=0.1, beta=0.5, m=4, s=2,
                     turnoffFermions=True, dtype="float64")
@@ -157,9 +157,9 @@ def test_pt_checkpoint_resume_determinism(tmp_path):
     fresh DetQMCPT must produce the same final chain state and the same
     per-parameter sample counts as an uninterrupted run (reference: PT
     saves per-rank state + assignment; SURVEY.md §6)."""
-    from detqmc_tpu.driver import DriverConfig
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
-    from detqmc_tpu.parallel.pt_driver import DetQMCPT, PTConfig
+    from detqmc.driver import DriverConfig
+    from detqmc.models.sdw import SDWConfig, SDWModel
+    from detqmc.parallel.pt_driver import DetQMCPT, PTConfig
 
     cfg = SDWConfig(L=2, opdim=1, r=0.0, u=0.5, beta=1.0, m=4, s=2,
                     turnoffFermions=True, dtype="float64")
@@ -198,9 +198,9 @@ def test_pt_checkpoint_resume_determinism(tmp_path):
 
 
 def test_pt_walltime_stops_and_saves(tmp_path):
-    from detqmc_tpu.driver import DriverConfig
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
-    from detqmc_tpu.parallel.pt_driver import DetQMCPT, PTConfig
+    from detqmc.driver import DriverConfig
+    from detqmc.models.sdw import SDWConfig, SDWModel
+    from detqmc.parallel.pt_driver import DetQMCPT, PTConfig
 
     cfg = SDWConfig(L=2, opdim=1, r=0.0, u=0.5, beta=1.0, m=4, s=2,
                     turnoffFermions=True, dtype="float64")
@@ -219,10 +219,10 @@ def test_pt_control_parameter_validated():
     loudly, not silently swap r anyway)."""
     import pytest as _pytest
 
-    from detqmc_tpu.driver import DriverConfig
-    from detqmc_tpu.exceptions import ConfigurationError
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
-    from detqmc_tpu.parallel.pt_driver import DetQMCPT, PTConfig
+    from detqmc.driver import DriverConfig
+    from detqmc.exceptions import ConfigurationError
+    from detqmc.models.sdw import SDWConfig, SDWModel
+    from detqmc.parallel.pt_driver import DetQMCPT, PTConfig
 
     cfg = SDWConfig(L=2, opdim=1, r=1.0, u=0.5, beta=1.0, m=4, s=2,
                     turnoffFermions=True, dtype="float64")
@@ -235,13 +235,13 @@ def test_pt_phi_dumps_feed_sdwcorr(tmp_path):
     """PT runs dump per-parameter phi .binarystream files routed by the
     current label assignment (reference: DetSDWSystemConfig per-replica
     dumps), and the offline sdwcorr pipeline consumes them."""
-    from detqmc_tpu.analysis.sdwcorr import phi_correlations
-    from detqmc_tpu.driver import DriverConfig
-    from detqmc_tpu.io.binarystream import read_binarystream
-    from detqmc_tpu.io.series import load_series
-    from detqmc_tpu.metadata import read_metadata
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
-    from detqmc_tpu.parallel.pt_driver import DetQMCPT, PTConfig
+    from detqmc.analysis.sdwcorr import phi_correlations
+    from detqmc.driver import DriverConfig
+    from detqmc.io.binarystream import read_binarystream
+    from detqmc.io.series import load_series
+    from detqmc.metadata import read_metadata
+    from detqmc.models.sdw import SDWConfig, SDWModel
+    from detqmc.parallel.pt_driver import DetQMCPT, PTConfig
 
     r_grid = [0.2, 1.0]
     cfg = SDWConfig(L=2, opdim=2, r=0.2, u=0.5, beta=1.0, m=4, s=2,
@@ -270,9 +270,9 @@ def test_pt_ensembles_end_to_end(tmp_path):
     """E=2 independent PT systems vmapped into one batch: every parameter
     value books E chains' measurements, assignments stay per-ensemble
     permutations, exchange-rate counters aggregate both systems."""
-    from detqmc_tpu.driver import DriverConfig
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
-    from detqmc_tpu.parallel.pt_driver import DetQMCPT, PTConfig
+    from detqmc.driver import DriverConfig
+    from detqmc.models.sdw import SDWConfig, SDWModel
+    from detqmc.parallel.pt_driver import DetQMCPT, PTConfig
 
     r_grid = [0.0, 0.8, 1.6]
     cfg = SDWConfig(L=2, opdim=1, r=0.0, u=0.5, beta=1.0, m=4, s=2,
@@ -295,7 +295,7 @@ def test_pt_ensembles_end_to_end(tmp_path):
         assert n == 2 * 40, (k, n)
         assert np.isfinite(results[k]["phiSquared"][0])
     # phi dump stream: E configs per dump round
-    from detqmc_tpu.io.binarystream import read_binarystream
+    from detqmc.io.binarystream import read_binarystream
 
     cfgs = read_binarystream(str(tmp_path / "pt_e" / "p0" /
                                  "phi.binarystream"))
@@ -310,10 +310,10 @@ def test_pt_ensembles_end_to_end(tmp_path):
 def test_pt_ensembles_resume_guard(tmp_path):
     """Resuming an E=2 checkpoint with a different ensemble count must
     fail loudly, not garble shapes."""
-    from detqmc_tpu.driver import DriverConfig
-    from detqmc_tpu.exceptions import ConfigurationError
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
-    from detqmc_tpu.parallel.pt_driver import DetQMCPT, PTConfig
+    from detqmc.driver import DriverConfig
+    from detqmc.exceptions import ConfigurationError
+    from detqmc.models.sdw import SDWConfig, SDWModel
+    from detqmc.parallel.pt_driver import DetQMCPT, PTConfig
 
     cfg = SDWConfig(L=2, opdim=1, r=0.0, u=0.5, beta=0.5, m=4, s=2,
                     turnoffFermions=True, dtype="float64")
@@ -369,7 +369,7 @@ def test_hubbard_stagger_bias_polarizes():
     polarize the auxiliary field toward the AF pattern: <sum eta s>
     clearly positive at large h, near zero at h = 0. Validates the
     u01-prescale implementation of the bias in HubbardModel._sweep."""
-    from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
+    from detqmc.models.hubbard import HubbardConfig, HubbardModel
 
     def mean_stagger(h):
         cfg = HubbardConfig(L=2, U=2.0, beta=2.0, m=8, s=4,
@@ -396,10 +396,10 @@ def test_pt_hubbard_h_grid_end_to_end(tmp_path):
     wiring (per-parameter streams, exchange accounting) and physics:
     the replica holding the largest h must be more AF-polarized than
     the h = 0 one."""
-    from detqmc_tpu.driver import DriverConfig
-    from detqmc_tpu.exceptions import ConfigurationError
-    from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
-    from detqmc_tpu.parallel.pt_driver import DetQMCPT, PTConfig
+    from detqmc.driver import DriverConfig
+    from detqmc.exceptions import ConfigurationError
+    from detqmc.models.hubbard import HubbardConfig, HubbardModel
+    from detqmc.parallel.pt_driver import DetQMCPT, PTConfig
 
     h_grid = [0.0, 0.25, 0.6, 1.2]
     cfg = HubbardConfig(L=2, U=2.0, beta=2.0, m=8, s=4, dtype="float64")

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import scipy.linalg as sla
 
-from detqmc_tpu.models.sdw import SDWConfig, SDWModel
+from detqmc.models.sdw import SDWConfig, SDWModel
 from tests.oracle.sdw_oracle import SDWOracle, classical_on_mc
 
 
@@ -449,7 +449,7 @@ def test_in_run_structure_factor_matches_sdwcorr():
     """The in-run phiStructureFactor/phiCorrelation must agree with the
     offline sdwcorr tool on the same configuration (same k-grid layout:
     site-major index s <-> FFT bin (y_s, x_s))."""
-    from detqmc_tpu.analysis.sdwcorr import phi_correlations
+    from detqmc.analysis.sdwcorr import phi_correlations
 
     cfg = SDWConfig(L=4, opdim=2, beta=1.0, m=4, s=2, dtype="float64")
     model = SDWModel(cfg)
@@ -460,27 +460,6 @@ def test_in_run_structure_factor_matches_sdwcorr():
                                out["struct_k"].reshape(-1), atol=1e-10)
     np.testing.assert_allclose(np.asarray(cd),
                                out["corr_r"].reshape(-1), atol=1e-10)
-
-
-def test_embed_green_refine_matches_f64_chain():
-    """green_kernel='refine' on the embedded representation: the same
-    Markov chain as the f64 XLA green (identical fields — the accept
-    logic sees G only through update ratios), with stabilized G within
-    the refine accuracy of the f64 one."""
-    kw = dict(L=2, opdim=2, r=0.8, beta=1.0, m=8, s=2, dtype="float32",
-              fermion_repr="real_embed", fermion_matrix="full")
-    m_ref = SDWModel(SDWConfig(**kw))                 # CPU: f64 green
-    m_rf = SDWModel(SDWConfig(**kw, green_kernel="refine"))
-    s_ref = m_ref.init_state(jax.random.key(7))
-    s_rf = m_rf.init_state(jax.random.key(7))
-    for _ in range(3):
-        s_ref, _ = m_ref.sweep_pair(s_ref, measure=False)
-        s_rf, _ = m_rf.sweep_pair(s_rf, measure=False)
-    np.testing.assert_array_equal(np.asarray(s_ref.phi),
-                                  np.asarray(s_rf.phi))
-    G1 = np.asarray(s_ref.G, np.float64)
-    G2 = np.asarray(s_rf.G, np.float64)
-    assert np.abs(G1 - G2).max() / max(np.abs(G1).max(), 1e-30) < 2e-5
 
 
 @pytest.mark.parametrize("opdim", [2, 3])
@@ -521,7 +500,7 @@ def test_k_occupation_free_fermion_closed_form():
     """lam=0 decouples the fermions: the Trotter chain is the EXACT free
     propagator, so n_x(k) = 2 f(eps_x(k) - mu) (both spins), Fermi
     function at the model's own kinetic exponential."""
-    from detqmc_tpu.lattice import kinetic_exponentials
+    from detqmc.lattice import kinetic_exponentials
 
     cfg, model, state = make(2, lam=0.0, fermion_matrix="full")
     obs = model.measure(state.G, state.phi, state.phase, 0.0)

@@ -6,7 +6,7 @@ import jax
 import numpy as np
 import pytest
 
-from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
+from detqmc.models.hubbard import HubbardConfig, HubbardModel
 from tests.oracle.hubbard_oracle import hubbard_ed
 
 

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from detqmc_tpu.statistics import (
+from detqmc.statistics import (
     binning_error,
     jackknife,
     jackknife_multi,

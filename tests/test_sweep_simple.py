@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
-from detqmc_tpu.models.sdw import SDWConfig, SDWModel
+from detqmc.models.hubbard import HubbardConfig, HubbardModel
+from detqmc.models.sdw import SDWConfig, SDWModel
 
 
 def test_hubbard_sweep_simple_matches_stabilized():

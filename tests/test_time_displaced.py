@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
+from detqmc.models.hubbard import HubbardConfig, HubbardModel
 from tests.oracle.hubbard_oracle import HubbardOracle
 
 
@@ -68,7 +68,7 @@ def test_ph_mode_time_displaced_matches_two_sector():
     field configuration elementwise."""
     import jax
 
-    from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
+    from detqmc.models.hubbard import HubbardConfig, HubbardModel
 
     kw = dict(L=2, U=4.0, mu=0.0, beta=2.0, m=16, s=4, dtype="float64")
     m2 = HubbardModel(HubbardConfig(**kw, ph_symmetry="off"))
@@ -90,7 +90,7 @@ def test_sdw_time_displaced_free_fermion_limit():
     G(k, tau) = e^{-tau(eps-mu)} / (1 + e^{-beta(eps-mu)}) per band."""
     import jax
 
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
+    from detqmc.models.sdw import SDWConfig, SDWModel
 
     cfg = SDWConfig(L=4, opdim=2, lam=0.0, mu=-0.5, beta=2.0, m=16, s=4,
                     dtype="float64")
@@ -117,7 +117,7 @@ def test_sdw_time_displaced_cross_representation():
     same field (interacting case)."""
     import jax
 
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
+    from detqmc.models.sdw import SDWConfig, SDWModel
 
     kw = dict(L=2, opdim=2, beta=2.0, m=8, s=2, dtype="float64")
     full = SDWModel(SDWConfig(**kw, fermion_matrix="full"))
@@ -193,7 +193,7 @@ def test_per_slice_ph_mode_matches_two_sector():
 def test_per_slice_time_displaced_sdw():
     """SDW per-slice G(tau,0): matches the naive fp64 product
     B(tau,0) G(0) built from the model's own B applies."""
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
+    from detqmc.models.sdw import SDWConfig, SDWModel
 
     cfg = SDWConfig(L=2, opdim=2, r=0.5, beta=1.0, m=8, s=2,
                     dtype="float64")
@@ -314,7 +314,7 @@ def test_sdw_pair_susceptibilities_vs_oracle(opdim):
     sector-aware contraction (with D-dressed d-wave factors) matches an
     independent complex-NumPy Wick evaluation on brute-force 4N Greens
     from the oracle's own B matrices."""
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
+    from detqmc.models.sdw import SDWConfig, SDWModel
     from tests.oracle.sdw_oracle import SDWOracle
 
     cfg = SDWConfig(L=2, opdim=opdim, r=0.5, beta=1.0, m=8, s=2,
@@ -507,7 +507,7 @@ def test_sdw_reverse_time_displaced_vs_oracle(opdim):
     fp64, in every physical orbital block (the reduced sector's
     conjugate reconstruction holds for G(0,tau) because sector B's
     propagators are the conjugates of sector A's)."""
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
+    from detqmc.models.sdw import SDWConfig, SDWModel
     from tests.oracle.sdw_oracle import SDWOracle
 
     cfg = SDWConfig(L=2, opdim=opdim, r=0.5, beta=1.0, m=8, s=2,
@@ -532,26 +532,3 @@ def test_sdw_reverse_time_displaced_vs_oracle(opdim):
                 np.testing.assert_allclose(
                     re4[o, p] + 1j * im4[o, p], blk, atol=1e-8,
                     err_msg=f"tau={tau} block=({o},{p})")
-
-
-def test_sdw_reverse_time_displaced_native_matches_reduced():
-    """The native-pair reverse chain (plane-wise -G^H) agrees with the
-    reduced representation on the same phi."""
-    from detqmc_tpu.models.sdw import SDWConfig, SDWModel
-
-    kw = dict(L=2, opdim=2, r=0.8, beta=1.0, m=4, s=2, dtype="float32")
-    mn = SDWModel(SDWConfig(fermion_repr="native_pair", **kw))
-    mr = SDWModel(SDWConfig(**kw))
-    key = jax.random.key(7)
-    sn, sr = mn.init_state(key), mr.init_state(key)
-    np.testing.assert_array_equal(np.asarray(sn.phi), np.asarray(sr.phi))
-    gn, devn = mn.time_displaced_greens_rev_all(sn.phi)
-    gr, devr = mr.time_displaced_greens_rev_all(sr.phi)
-    assert float(devn) < 1e-3 and float(devr) < 1e-3
-    for tau in (0, 2, 4):
-        ren, imn = mn._phys_green_parts(gn[tau])
-        rer, imr = mr._phys_green_parts(gr[tau])
-        np.testing.assert_allclose(np.asarray(ren), np.asarray(rer),
-                                   atol=2e-4, err_msg=f"re tau={tau}")
-        np.testing.assert_allclose(np.asarray(imn), np.asarray(imr),
-                                   atol=2e-4, err_msg=f"im tau={tau}")

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from detqmc_tpu.linalg.udv import (
+from detqmc.linalg.udv import (
     UDV,
     green_from_two_udv,
     green_from_udv,

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from detqmc_tpu.models.sdw import SDWConfig, SDWModel
+from detqmc.models.sdw import SDWConfig, SDWModel
 
 
 def test_wolff_preserves_phi_norm_and_consistency():

@@ -1,11 +1,12 @@
 """Wrap-only matmul precision knob (SDWConfig.wrap_prec / wrapPrec).
 
-On TPU, wrap_prec="high" runs the B G B^-1 wrap products at 3-pass bf16
-instead of 6-pass — only the wrapped G between stabilization anchors is
-affected (accept decisions; every measured G is freshly stabilized and
-green_dev gates drift). Off-TPU, HIGH and HIGHEST are both full f32, so
-sweeps must be bit-identical — which also proves the knob threads
-through the whole wrap path rather than silently falling back.
+wrap_prec="high" lets the backend run the B G B^-1 wrap products at a
+reduced-precision rate where it has one — only the wrapped G between
+stabilization anchors is affected (accept decisions; every measured G is
+freshly stabilized and green_dev gates drift). On the CPU, HIGH and
+HIGHEST are both full f32, so sweeps must be bit-identical — which also
+proves the knob threads through the whole wrap path rather than silently
+falling back.
 """
 
 import jax
@@ -13,8 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from detqmc_tpu.config import build_sdw_config
-from detqmc_tpu.models.sdw import SDWConfig, SDWModel
+from detqmc.config import build_sdw_config
+from detqmc.models.sdw import SDWConfig, SDWModel
 
 
 def _sweep_obs(model):
@@ -25,11 +26,8 @@ def _sweep_obs(model):
     return st, obs
 
 
-@pytest.mark.skipif(jax.default_backend() == "tpu",
-                    reason="HIGH != HIGHEST on the MXU; bit-identity "
-                           "only holds where both are full f32")
 @pytest.mark.parametrize("opdim", [1, 3])
-def test_wrap_prec_high_matches_highest_off_tpu(opdim):
+def test_wrap_prec_high_matches_highest_on_cpu(opdim):
     kw = dict(L=4, opdim=opdim, beta=2.0, m=16, s=4, dtype="float32",
               checkerboard=True)
     m_hi = SDWModel(SDWConfig(**kw, wrap_prec="highest"))
@@ -55,12 +53,11 @@ def test_wrap_prec_config_key_and_validation():
 
 
 def test_wrap_prec_auto_resolves_highest_and_env_validated(monkeypatch):
-    """auto = full f32 everywhere (the round-3 HIGH-on-TPU default was
-    the BENCH_r03 green_dev regression), and a typo'd env override must
-    fail loudly instead of silently measuring nothing."""
+    """auto = full f32, and a typo'd value fails loudly instead of
+    silently measuring nothing; the config field is the only way to
+    select the precision."""
     kw = dict(L=4, opdim=1, beta=2.0, m=8, s=2, dtype="float32")
     m_auto = SDWModel(SDWConfig(**kw, wrap_prec="auto"))
     assert m_auto._wrap_prec == jax.lax.Precision.HIGHEST
-    monkeypatch.setenv("DETQMC_TPU_WRAP_PREC", "hgih")
     with pytest.raises(ValueError):
-        SDWModel(SDWConfig(**kw))
+        SDWModel(SDWConfig(**kw, wrap_prec="hgih"))
